@@ -1,16 +1,16 @@
 """Generate quantized cosine-sum windows, all three modes.
 
-Runs on CPU or TPU alike (small sizes; force CPU with JAX_PLATFORM_NAME=cpu).
+Runs on CPU or GPU alike (small sizes; force CPU with JAX_PLATFORMS=cpu).
 Mirrors the reference's simplest use: instantiate a window core, stream N
 samples (src/win_selector.vhd) — here one call, any N = 2^phase_width.
 """
 import _path  # noqa: F401  (in-repo import shim)
 import numpy as np
 
-from blackman_harris_win_tpu.core.config import WindowSpec
-from blackman_harris_win_tpu.kernels.window import make_window
-from blackman_harris_win_tpu.model import golden
-from blackman_harris_win_tpu.windows import catalog
+from blackman_harris_win.core.config import WindowSpec
+from blackman_harris_win.kernels.window import make_window
+from blackman_harris_win.model import golden
+from blackman_harris_win.windows import catalog
 
 # --- bit-exact fixed-point CORDIC path (the reference's datapath) ---
 spec = WindowSpec(phase_width=12, data_width=17)  # 4096-pt, -92 dB sizing
@@ -27,9 +27,9 @@ assert all(
 print("bit-exact vs golden model: OK")
 
 # --- fast modes for the -180 dB regime (spectrally validated) ---
-from blackman_harris_win_tpu.kernels.fastwin import window_values_fast
-from blackman_harris_win_tpu.kernels.outerwin import window_block_outer
-from blackman_harris_win_tpu.utils.spectral import window_sidelobe_db
+from blackman_harris_win.kernels.fastwin import window_values_fast
+from blackman_harris_win.kernels.outerwin import window_block_outer
+from blackman_harris_win.utils.spectral import window_sidelobe_db
 import jax.numpy as jnp
 
 spec7 = WindowSpec(phase_width=14, data_width=32)

@@ -9,8 +9,8 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from blackman_harris_win_tpu.core.config import WindowSpec
-from blackman_harris_win_tpu.pipeline.spectral import windowed_power_spectrum
+from blackman_harris_win.core.config import WindowSpec
+from blackman_harris_win.pipeline.spectral import windowed_power_spectrum
 
 spec = WindowSpec(phase_width=12, data_width=17)  # 4096-pt frames, BH-4
 nfft = spec.n

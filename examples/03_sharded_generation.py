@@ -1,6 +1,6 @@
 """Sharded window generation + sharded Welch over a device mesh.
 
-Run with a virtual 8-device CPU mesh (no TPU pod needed):
+Run with a virtual 8-device CPU mesh (no multi-card host needed):
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
     JAX_PLATFORM_NAME=cpu python examples/03_sharded_generation.py
@@ -16,11 +16,11 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from blackman_harris_win_tpu.core.config import WindowSpec
-from blackman_harris_win_tpu.dist.generate import sharded_window
-from blackman_harris_win_tpu.dist.mesh import make_mesh
-from blackman_harris_win_tpu.pipeline.spectral import make_sharded_welch
-from blackman_harris_win_tpu.windows import catalog
+from blackman_harris_win.core.config import WindowSpec
+from blackman_harris_win.dist.generate import sharded_window
+from blackman_harris_win.dist.mesh import make_mesh
+from blackman_harris_win.pipeline.spectral import make_sharded_welch
+from blackman_harris_win.windows import catalog
 
 ndev = len(jax.devices())
 channels = 2 if ndev % 2 == 0 and ndev > 1 else 1
@@ -45,7 +45,7 @@ print(f"spectrum: {p.shape} (sharded {p.sharding})")
 
 # sharded == single-device, bit-for-bit on the quantized window
 w1 = np.asarray(w)
-from blackman_harris_win_tpu.kernels.window import make_window
+from blackman_harris_win.kernels.window import make_window
 w0 = np.asarray(make_window("bh7", spec))
 assert (w0 == w1).all()
 print("sharded == single-device: bit-exact OK")

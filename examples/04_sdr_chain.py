@@ -10,8 +10,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from blackman_harris_win_tpu.pipeline.channelizer import design_prototype, polyphase_channelize
-from blackman_harris_win_tpu.pipeline.sdr import sdr_chain
+from blackman_harris_win.pipeline.channelizer import design_prototype, polyphase_channelize
+from blackman_harris_win.pipeline.sdr import sdr_chain
 
 C, TPB = 16, 8
 proto = design_prototype(C, TPB)

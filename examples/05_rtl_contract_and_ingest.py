@@ -2,7 +2,7 @@
 capture ingest through the native stream-IO runtime, and resumable
 streaming.
 
-Runs on CPU or TPU alike (force CPU with JAX_PLATFORM_NAME=cpu).
+Runs on CPU or GPU alike (force CPU with JAX_PLATFORMS=cpu).
 """
 import tempfile
 
@@ -11,17 +11,17 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from blackman_harris_win_tpu.core.config import WindowSpec
-from blackman_harris_win_tpu.kernels.window import window_samples
-from blackman_harris_win_tpu.model import golden
-from blackman_harris_win_tpu.utils import io as sio
-from blackman_harris_win_tpu.utils.streaming import StreamCursor
-from blackman_harris_win_tpu.windows import catalog
+from blackman_harris_win.core.config import WindowSpec
+from blackman_harris_win.kernels.window import window_samples
+from blackman_harris_win.model import golden
+from blackman_harris_win.utils import io as sio
+from blackman_harris_win.utils.streaming import StreamCursor
+from blackman_harris_win.windows import catalog
 
 # --- 1. the RTL (VHDL) rounding contract at the -180 dB config ------------
 # src/bh_win_3term.vhd:257-306: product slice [2W-2:W-2], round-half-up off
 # bit 0, W+2-bit alternating tree, final round off bit 1 — exactly what the
-# synthesized hardware computes, bit for bit, on int32 TPU lanes.
+# synthesized hardware computes, bit for bit, on int32 lanes.
 spec = WindowSpec(phase_width=12, data_width=32, rounding="rtl",
                   overflow="wrap")
 q = catalog.get("bh7").quantized(32)
@@ -60,7 +60,7 @@ with tempfile.TemporaryDirectory() as td:
     print("native ingest + cursor resume: OK")
 
 # --- 3. analyze the ingested stream with an on-the-fly quantized window ---
-from blackman_harris_win_tpu.pipeline.spectral import windowed_power_spectrum
+from blackman_harris_win.pipeline.spectral import windowed_power_spectrum
 
 x = np.concatenate(blocks)
 pxx = np.asarray(

@@ -1,7 +1,7 @@
 """Distributed modify-in-frequency chain: sharded STFT -> notch -> sharded
 WOLA istft, with frames resident on the shard that owns their samples.
 
-Run with a virtual 8-device CPU mesh (no TPU pod needed):
+Run with a virtual 8-device CPU mesh (no multi-card host needed):
 
     XLA_FLAGS=--xla_force_host_platform_device_count=8 \
     JAX_PLATFORM_NAME=cpu python examples/06_distributed_wola_filter.py
@@ -20,13 +20,13 @@ import jax.numpy as jnp
 import numpy as np
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from blackman_harris_win_tpu.core.config import WindowSpec
-from blackman_harris_win_tpu.dist.mesh import make_mesh
-from blackman_harris_win_tpu.pipeline.stft import (
+from blackman_harris_win.core.config import WindowSpec
+from blackman_harris_win.dist.mesh import make_mesh
+from blackman_harris_win.pipeline.stft import (
     make_sharded_istft,
     make_sharded_stft,
 )
-from blackman_harris_win_tpu.windows import catalog
+from blackman_harris_win.windows import catalog
 
 ndev = len(jax.devices())
 channels = 2 if ndev % 2 == 0 and ndev > 1 else 1

@@ -1,9 +1,9 @@
-"""Native float32 window generation — the TPU-only fast path.
+"""Native float32 window generation — the fast path for float consumers.
 
 The reference is an integer IP library; its consumers are integer FFT
-cores.  On TPU the downstream consumers (Welch, STFT, WOLA) are float32,
+cores.  Here the downstream consumers (Welch, STFT, WOLA) are float32,
 so this framework adds a mode the reference cannot have: generate the
-window *natively* in f32 (``kernels/floatwin.py``, ~4 VPU slots per
+window *natively* in f32 (``kernels/floatwin.py``, ~4 f32 ops per
 harmonic per sample, no int datapath, no convert pass).  Measured: the
 f32 floor equals the f64 floor for every catalog window through 5 terms;
 BH-7 holds ~-163 dB of its -180 dB contract (the exact int paths keep the
@@ -14,11 +14,11 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from blackman_harris_win_tpu.core.config import WindowSpec
-from blackman_harris_win_tpu.kernels.floatwin import float_window
-from blackman_harris_win_tpu.pipeline.spectral import windowed_power_spectrum
-from blackman_harris_win_tpu.pipeline.stft import float_stft_pair
-from blackman_harris_win_tpu.utils.spectral import window_sidelobe_db
+from blackman_harris_win.core.config import WindowSpec
+from blackman_harris_win.kernels.floatwin import float_window
+from blackman_harris_win.pipeline.spectral import windowed_power_spectrum
+from blackman_harris_win.pipeline.stft import float_stft_pair
+from blackman_harris_win.utils.spectral import window_sidelobe_db
 
 # 1. the window itself: f32, unit amplitude, floor measured spectrally
 w = np.asarray(jax.jit(lambda: float_window("bh5", 14))())
@@ -48,7 +48,7 @@ print("float32 native windows example: OK")
 # the float regime.  Pure f32 output cannot hold it (rounding the exact
 # window to f32 already floors at -178.6 dB at pw=16) — the (hi, lo) pair
 # can, applied as x*hi + x*lo.
-from blackman_harris_win_tpu.kernels.compwin import comp_window
+from blackman_harris_win.kernels.compwin import comp_window
 
 hi, lo = comp_window("bh7", 16, pair=True)
 pair = np.asarray(hi, np.float64) + np.asarray(lo, np.float64)

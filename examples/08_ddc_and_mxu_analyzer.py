@@ -1,21 +1,21 @@
-"""DDC + the MXU matmul-DFT analyzer (round-5 additions).
+"""DDC + the matmul-DFT analyzer.
 
 1. Digital downconverter: the reference's CORDIC in its titular DDS role
    (src/cordic_dds48.vhd:9-14 "sine and cosine generator") — a fixed-point
    NCO tone, an integer I/Q mixer on int32 lanes (the dds48 -sin axis
    quirk IS the downconversion phase), and a decimating windowed-sinc FIR.
 2. The Welch analyzer with fft_mode="mxu": mixed-radix Cooley-Tukey whose
-   small DFTs run as MXU matmuls — 1.30x XLA's rfft path on chip
-   (BENCH_NOTES round 5).  Runs fine on CPU.
+   small DFTs run as dense matmuls (HIGHEST precision).  Runs on CPU or
+   GPU alike.
 """
 import _path  # noqa: F401  (in-repo import shim)
 import numpy as np
 import jax
 import jax.numpy as jnp
 
-from blackman_harris_win_tpu.core.config import WindowSpec
-from blackman_harris_win_tpu.pipeline.ddc import ddc
-from blackman_harris_win_tpu.pipeline.spectral import windowed_power_spectrum
+from blackman_harris_win.core.config import WindowSpec
+from blackman_harris_win.pipeline.ddc import ddc
+from blackman_harris_win.pipeline.spectral import windowed_power_spectrum
 
 # --- 1. DDC: recover a tone 1/256 cycles/sample above the NCO ---
 fc, df, decim = 1 / 8, 1 / 256, 4
@@ -28,7 +28,7 @@ print(f"DDC baseband frequency: {f_meas:.6f} cycles/input-sample "
       f"(expected {df:.6f})")
 assert abs(f_meas - df) < 1e-4
 
-# --- 2. Welch with the MXU matmul-DFT backend vs XLA's rfft ---
+# --- 2. Welch with the matmul-DFT backend vs XLA's rfft ---
 spec = WindowSpec(phase_width=10, data_width=17)  # nfft = 1024
 sig = (np.sin(2 * np.pi * 0.1 * np.arange(1 << 15))
        + 0.001 * np.random.default_rng(0).normal(size=1 << 15)

@@ -6,11 +6,11 @@
 // cpp/cordic_sincos.cpp:131 writes math/coe.dat for Octave).  Production
 // SDR captures arrive the same way: raw int8/int16/interleaved-IQ streams.
 // This is the framework's host-side ingest runtime, in C++ because the
-// host does the format conversion while the TPU computes: mmap (zero-copy
+// host does the format conversion while the device computes: mmap (zero-copy
 // until touched) + tight conversion loops, random block access for the
 // resumable streaming cursor (utils/streaming.py: state == block index).
 //
-// Exposed via ctypes (blackman_harris_win_tpu/utils/io.py).  All offsets
+// Exposed via ctypes (blackman_harris_win/utils/io.py).  All offsets
 // and counts are in SAMPLES of the file's native format.
 
 #include <cstdint>

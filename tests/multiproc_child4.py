@@ -26,7 +26,7 @@ def main(argv) -> int:
 
     import jax
 
-    from blackman_harris_win_tpu.dist import multihost
+    from blackman_harris_win.dist import multihost
 
     multihost.initialize(
         coordinator_address=f"localhost:{port}",
@@ -41,15 +41,15 @@ def main(argv) -> int:
     from jax import shard_map
     from jax.sharding import PartitionSpec as P
 
-    from blackman_harris_win_tpu.core.config import WindowSpec
-    from blackman_harris_win_tpu.dist.generate import sharded_window
-    from blackman_harris_win_tpu.dist.multihost import (
+    from blackman_harris_win.core.config import WindowSpec
+    from blackman_harris_win.dist.generate import sharded_window
+    from blackman_harris_win.dist.multihost import (
         owned_block_cols,
         pod_mesh,
         process_block_range,
     )
-    from blackman_harris_win_tpu.kernels.window import window_samples
-    from blackman_harris_win_tpu.windows import catalog
+    from blackman_harris_win.kernels.window import window_samples
+    from blackman_harris_win.windows import catalog
 
     ndev = len(jax.devices())
     nlocal = len(jax.local_devices())

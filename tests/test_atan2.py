@@ -5,8 +5,8 @@ import math
 import numpy as np
 import pytest
 
-from blackman_harris_win_tpu.kernels.cordic import atan2_fixed, cordic_atan2
-from blackman_harris_win_tpu.model import golden
+from blackman_harris_win.kernels.cordic import atan2_fixed, cordic_atan2
+from blackman_harris_win.model import golden
 
 
 def _vectors(iw, count=400, seed=0, r_min=None):

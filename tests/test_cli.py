@@ -1,13 +1,13 @@
-"""CLI front-end (``python -m blackman_harris_win_tpu``) tests — CPU."""
+"""CLI front-end (``python -m blackman_harris_win``) tests — CPU."""
 
 import json
 
 import numpy as np
 import pytest
 
-from blackman_harris_win_tpu.__main__ import main
-from blackman_harris_win_tpu.model import golden
-from blackman_harris_win_tpu.windows import catalog
+from blackman_harris_win.__main__ import main
+from blackman_harris_win.model import golden
+from blackman_harris_win.windows import catalog
 
 
 def test_list_json(capsys):
@@ -238,7 +238,7 @@ def test_design_null_and_outfile(tmp_path, capsys):
         "--out", str(f),
     ]) == 0
     out = json.loads(capsys.readouterr().out.splitlines()[0])
-    from blackman_harris_win_tpu.windows.design import cosine_sum_spectrum
+    from blackman_harris_win.windows.design import cosine_sum_spectrum
 
     assert abs(cosine_sum_spectrum(out["coeffs"], 9.5)[0]) < 1e-12
     q = np.loadtxt(f, dtype=np.int64)
@@ -273,8 +273,8 @@ def test_gen_taylor_source_bit_exact(tmp_path):
     w = np.load(f)
     assert len(w) == 2048
     q = catalog.get("blackman").quantized(16)
-    from blackman_harris_win_tpu.core.config import WindowSpec
-    from blackman_harris_win_tpu.kernels.window import window_samples
+    from blackman_harris_win.core.config import WindowSpec
+    from blackman_harris_win.kernels.window import window_samples
 
     spec = WindowSpec(11, 16, sin_type="taylor", lut_size=9,
                       overflow="wrap")
@@ -316,3 +316,28 @@ def test_spectrum_fft_mode_mxu(tmp_path, capsys):
         outs[mode] = np.load(out)
     a, b = outs["rfft"].astype(np.float64), outs["mxu"].astype(np.float64)
     assert np.max(np.abs(a - b) / (np.abs(a).max() + 1e-300)) < 2e-6
+
+
+def test_stft_complex_output_matches_f64(tmp_path):
+    """The stft command copies the complex frames straight to the host:
+    every bin equals the float64 STFT of the same quantized window."""
+    from blackman_harris_win.model import native
+
+    nfft, hop = 256, 128
+    x = np.random.default_rng(7).standard_normal(nfft + 6 * hop)
+    x = x.astype(np.float32)
+    f_in, f_out = tmp_path / "x.npy", tmp_path / "s.npy"
+    np.save(f_in, x)
+    assert main([
+        "stft", "bh4", "--phase-width", "8", "--data-width", "17",
+        "--input", str(f_in), "--out", str(f_out),
+    ]) == 0
+    s = np.load(f_out)
+    assert s.dtype == np.complex64 and s.shape == (7, nfft // 2 + 1)
+    d = catalog.get("bh4")
+    win = native.win_hls(np.arange(nfft), d.quantized(17), 8, 17) / (
+        2.0 ** (17 - d.shift) - 1.0)
+    frames = np.stack([x[m * hop: m * hop + nfft] for m in range(7)])
+    ref = np.fft.rfft(frames.astype(np.float64) * win, axis=-1)
+    # f32 FFT vs float64: 32 * 2^-24 * sqrt(nfft) relative to the peak
+    assert np.max(np.abs(s - ref)) < 32 * 2.0**-24 * 16 * np.max(np.abs(ref))

@@ -14,14 +14,14 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from blackman_harris_win_tpu.kernels.compwin import (
+from blackman_harris_win.kernels.compwin import (
     DEFAULT_THRESH,
     comp_window,
     comp_window_block,
     comp_window_flops,
 )
-from blackman_harris_win_tpu.utils.spectral import window_sidelobe_db
-from blackman_harris_win_tpu.windows.catalog import (
+from blackman_harris_win.utils.spectral import window_sidelobe_db
+from blackman_harris_win.windows.catalog import (
     float_window_value,
     get,
     names,
@@ -71,7 +71,7 @@ class TestPairAccuracy:
     def test_all_plain_threshold_matches_floatwin(self):
         """thresh > max|a_k| compensates nothing: the e-path is then exactly
         floatwin's arithmetic (same tables, same order)."""
-        from blackman_harris_win_tpu.kernels.floatwin import float_window
+        from blackman_harris_win.kernels.floatwin import float_window
 
         pw = 12
         hi, lo = comp_window("bh4", pw, pair=True, thresh=1.1)
@@ -119,7 +119,7 @@ class TestSpectralFloors:
 
 class TestBlocks:
     def test_blocks_tile_the_window(self):
-        from blackman_harris_win_tpu.kernels.compwin import comp_window_pair
+        from blackman_harris_win.kernels.compwin import comp_window_pair
 
         pw, m, rows = 14, 8, 4
         hi_f, lo_f = comp_window_pair("bh7", pw, m=m)
@@ -194,48 +194,10 @@ class TestOpModel:
         assert comp_window_flops(4, (0.5, 0.5)) == 4 * (12 + 6)
 
 
-class TestInKernelReduceComp:
-    def test_interpret_checksum_matches_jnp(self):
-        from blackman_harris_win_tpu.kernels.pallas.outerwin_kernel import (
-            make_checksum_fn_comp,
-        )
-
-        pw, m = 12, 7
-        fn = make_checksum_fn_comp("bh7", pw, m=m, rows=8, interpret=True)
-        got = float(fn(jnp.int32(0)))
-        hi, lo = comp_window("bh7", pw, m=m, pair=True)
-        want = float(jnp.sum(hi) + jnp.sum(lo))
-        assert abs(got - want) < 1e-2 * max(1.0, abs(want))
-        got_b = float(fn(jnp.int32(5)))
-        assert abs(got_b - (got + 5.0)) < 1e-2
-
-    def test_interpret_no_plain_harmonics(self):
-        """A window whose every harmonic is compensated exercises the
-        no-plain-refs kernel variant."""
-        from blackman_harris_win_tpu.kernels.pallas.outerwin_kernel import (
-            make_checksum_fn_comp,
-        )
-
-        pw, m = 11, 6
-        fn = make_checksum_fn_comp("hamming", pw, m=m, rows=8, interpret=True)
-        got = float(fn(jnp.int32(0)))
-        hi, lo = comp_window("hamming", pw, m=m, pair=True)
-        want = float(jnp.sum(hi) + jnp.sum(lo))
-        assert abs(got - want) < 1e-2 * max(1.0, abs(want))
-
-    def test_rows_must_divide(self):
-        from blackman_harris_win_tpu.kernels.pallas.outerwin_kernel import (
-            make_checksum_fn_comp,
-        )
-
-        with pytest.raises(ValueError, match="divisible"):
-            make_checksum_fn_comp("bh7", 12, m=7, rows=24)
-
-
 class TestPipelineIntegration:
     def test_welch_comp_mode_matches_float(self):
-        from blackman_harris_win_tpu.core.config import WindowSpec
-        from blackman_harris_win_tpu.pipeline.spectral import (
+        from blackman_harris_win.core.config import WindowSpec
+        from blackman_harris_win.pipeline.spectral import (
             windowed_power_spectrum,
         )
 
@@ -256,9 +218,9 @@ class TestPipelineIntegration:
             )
 
     def test_sharded_welch_comp_mode(self):
-        from blackman_harris_win_tpu.core.config import WindowSpec
-        from blackman_harris_win_tpu.dist.mesh import make_mesh
-        from blackman_harris_win_tpu.pipeline.spectral import (
+        from blackman_harris_win.core.config import WindowSpec
+        from blackman_harris_win.dist.mesh import make_mesh
+        from blackman_harris_win.pipeline.spectral import (
             make_sharded_welch,
             windowed_power_spectrum,
         )
@@ -282,8 +244,8 @@ class TestPipelineIntegration:
         np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-8)
 
     def test_sharded_comp_window_pair(self):
-        from blackman_harris_win_tpu.dist.generate import sharded_comp_window
-        from blackman_harris_win_tpu.dist.mesh import make_mesh
+        from blackman_harris_win.dist.generate import sharded_comp_window
+        from blackman_harris_win.dist.mesh import make_mesh
 
         n_dev = len(jax.devices())
         mesh = make_mesh(blocks=n_dev)
@@ -296,7 +258,7 @@ class TestPipelineIntegration:
 
 class TestCompStftPair:
     def test_round_trip(self):
-        from blackman_harris_win_tpu.pipeline.stft import comp_stft_pair
+        from blackman_harris_win.pipeline.stft import comp_stft_pair
 
         fwd, inv, (whi, wlo) = comp_stft_pair("bh7", 7, hop=32)
         assert whi.dtype == jnp.float32 and whi.shape == (128,)
@@ -308,7 +270,7 @@ class TestCompStftPair:
         )
 
     def test_matches_float_pair_spectra(self):
-        from blackman_harris_win_tpu.pipeline.stft import (
+        from blackman_harris_win.pipeline.stft import (
             comp_stft_pair,
             float_stft_pair,
         )
@@ -327,7 +289,7 @@ class TestDesignedWindows:
     def test_designed_7term_through_comp_path(self):
         """The −253 dB designed LP solution cannot survive any f32 output,
         but the pair must carry a designed K=5 set to its full floor."""
-        from blackman_harris_win_tpu.windows.design import design_min_sidelobe
+        from blackman_harris_win.windows.design import design_min_sidelobe
 
         r = design_min_sidelobe(5)
         hi, lo = comp_window(tuple(r.coeffs), 16, pair=True)
@@ -339,7 +301,7 @@ class TestDesignedWindows:
         ~−180.8 (periodic sinc-tail aliasing at finite N, not the
         continuous-DTFT −253), and the comp pair carries it there exactly
         (pair error 2e-10 — below the aliasing floor)."""
-        from blackman_harris_win_tpu.windows.design import design_min_sidelobe
+        from blackman_harris_win.windows.design import design_min_sidelobe
 
         r = design_min_sidelobe(7)
         pw = 16
@@ -361,7 +323,7 @@ class TestPropertyGrid:
         (10, 5), (12, 7), (12, 11), (14, 6), (14, 11), (13, 12),
     ])
     def test_pair_accuracy_across_splits(self, pw, m):
-        from blackman_harris_win_tpu.kernels.compwin import comp_window_pair
+        from blackman_harris_win.kernels.compwin import comp_window_pair
 
         hi, lo = comp_window_pair("bh7", pw, m=m)
         gold = float_window_value("bh7", np.arange(1 << pw), 1 << pw)
@@ -372,7 +334,7 @@ class TestPropertyGrid:
         """Random normalized K-term sets (the design-module output shape)
         hold pair accuracy — the grid-exactness argument is coefficient-
         independent as long as sum |a_k| < 1.9."""
-        from blackman_harris_win_tpu.kernels.compwin import comp_window_pair
+        from blackman_harris_win.kernels.compwin import comp_window_pair
 
         rng = np.random.default_rng(seed)
         k = int(rng.integers(2, 8))
@@ -387,20 +349,3 @@ class TestPropertyGrid:
             gold += ((-1.0) ** j) * aj * np.cos(
                 2.0 * np.pi * j * n / (1 << pw))
         assert np.max(np.abs(_pair64(hi, lo) - gold)) < 5e-9, coeffs
-
-
-class TestEmptyCompensatedSet:
-    def test_all_below_threshold_raises(self):
-        """A coefficient set with no harmonic above the compensation
-        threshold would give zero-width BlockSpecs and mis-sized tiles;
-        make_checksum_fn_comp must fail loudly instead."""
-        import pytest
-
-        from blackman_harris_win_tpu.kernels.pallas.outerwin_kernel import (
-            make_checksum_fn_comp,
-        )
-
-        # a0 plus harmonics all below DEFAULT_THRESH
-        coeffs = (0.9, 1e-7, 1e-7)
-        with pytest.raises(ValueError, match="compensation threshold"):
-            make_checksum_fn_comp(coeffs, 12, m=7, rows=8, interpret=True)

@@ -11,9 +11,9 @@ import math
 import numpy as np
 import pytest
 
-from blackman_harris_win_tpu.core.config import CordicSpec
-from blackman_harris_win_tpu.kernels import cordic as kc
-from blackman_harris_win_tpu.model import golden
+from blackman_harris_win.core.config import CordicSpec
+from blackman_harris_win.kernels import cordic as kc
+from blackman_harris_win.model import golden
 
 
 def _all_phases(pw, limit=4096):

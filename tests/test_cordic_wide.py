@@ -1,11 +1,11 @@
-"""Int32-lane (TPU) datapaths for the wide CORDIC flavors + RTL windows.
+"""Int32-lane datapaths for the wide CORDIC flavors + RTL windows.
 
 Round-1 VERDICT item 1: the two-limb / radix-2^24 paths in
 ``kernels/pallas/cordic_wide.py`` and the RTL rounding contract in
 ``kernels/pallas/window_kernel.py`` must be full-period bit-exact vs the
 native C++ oracle on pure int32 lanes, and the jnp flavor dispatch in
 ``kernels/cordic.py`` must route to them when int64 lanes are unavailable
-(the TPU production regime, exercised here by toggling x64 off).
+(the production regime, exercised here by toggling x64 off).
 """
 
 import numpy as np
@@ -14,16 +14,16 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-from blackman_harris_win_tpu.core.config import CordicSpec, WindowSpec
-from blackman_harris_win_tpu.kernels import cordic as kc
-from blackman_harris_win_tpu.kernels import window as kw
-from blackman_harris_win_tpu.kernels.pallas import cordic_wide as cwide
-from blackman_harris_win_tpu.kernels.pallas.window_kernel import (
+from blackman_harris_win.core.config import CordicSpec, WindowSpec
+from blackman_harris_win.kernels import cordic as kc
+from blackman_harris_win.kernels import window as kw
+from blackman_harris_win.kernels.pallas import cordic_wide as cwide
+from blackman_harris_win.kernels.pallas.window_kernel import (
     window_values,
     window_values_rtl,
 )
-from blackman_harris_win_tpu.model import golden, native
-from blackman_harris_win_tpu.windows import catalog
+from blackman_harris_win.model import golden, native
+from blackman_harris_win.windows import catalog
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -161,7 +161,7 @@ class TestWindowRtlInt32FullPeriod:
 
 class TestDispatchWithoutX64:
     """kernels/cordic.py + kernels/window.py route to the int32-lane paths
-    when int64 lanes are unavailable (the TPU regime)."""
+    when int64 lanes are unavailable (x64 off)."""
 
     @pytest.fixture(autouse=True)
     def _no_x64(self):
@@ -235,10 +235,10 @@ class TestDispatchWithoutX64:
                     bs.append((coeffs[k] * gc) >> (w - 1))
                 else:
                     p = coeffs[k] * gc
-                    from blackman_harris_win_tpu.core.fixedpoint import wrap
+                    from blackman_harris_win.core.fixedpoint import wrap
                     r = wrap(p >> (w - 2), w + 1)
                     bs.append(wrap((r >> 1) + (r & 1), w))
-            from blackman_harris_win_tpu.core.fixedpoint import wrap
+            from blackman_harris_win.core.fixedpoint import wrap
             if rounding == "hls":
                 for k, m in enumerate(bs, start=1):
                     acc = acc - m if k % 2 == 1 else acc + m

@@ -6,8 +6,8 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from blackman_harris_win_tpu.core import fixedpoint as fp
-from blackman_harris_win_tpu.core import luts
+from blackman_harris_win.core import fixedpoint as fp
+from blackman_harris_win.core import luts
 
 
 class TestLuts:

@@ -9,8 +9,8 @@ downconversion mixer phase directly.
 import numpy as np
 import pytest
 
-from blackman_harris_win_tpu.model import golden
-from blackman_harris_win_tpu.pipeline.ddc import (
+from blackman_harris_win.model import golden
+from blackman_harris_win.pipeline.ddc import (
     MIX_IN_BITS,
     ddc,
     freq_word,
@@ -120,7 +120,7 @@ class TestDdc:
         import jax.numpy as jnp
         from jax.sharding import NamedSharding, PartitionSpec as P
 
-        from blackman_harris_win_tpu.dist.mesh import make_mesh
+        from blackman_harris_win.dist.mesh import make_mesh
 
         n_dev = len(jax.devices())
         mesh = make_mesh(blocks=n_dev)
@@ -149,7 +149,7 @@ class TestDdc:
         assert np.max(np.abs(a - b)) < 1e-3
 
     def test_nco_scaled_matches_golden(self):
-        from blackman_harris_win_tpu.pipeline.ddc import nco_iq
+        from blackman_harris_win.pipeline.ddc import nco_iq
 
         pw, w = 12, 16
         fw = freq_word(3 / 16, pw)

@@ -1,19 +1,19 @@
 """Window design LP (windows/design.py): regenerating the reference's
 published minimum-sidelobe family from first principles, custom trade-offs,
-null placement, and the handoff into the quantized TPU generation path."""
+null placement, and the handoff into the quantized generation path."""
 
 import numpy as np
 import pytest
 
-from blackman_harris_win_tpu.windows import catalog
-from blackman_harris_win_tpu.windows.design import (
+from blackman_harris_win.windows import catalog
+from blackman_harris_win.windows.design import (
     DesignResult,
     cosine_sum_spectrum,
     design_min_sidelobe,
     quantized_coeffs,
     sampled_window,
 )
-from blackman_harris_win_tpu.windows.metrics import window_metrics
+from blackman_harris_win.windows.metrics import window_metrics
 
 pytest.importorskip("scipy.optimize")
 
@@ -109,17 +109,17 @@ class TestTradeoffsAndNulls:
 
 
 class TestQuantizedHandoff:
-    def test_designed_window_through_the_tpu_path(self):
+    def test_designed_window_through_the_generation_path(self):
         """Designed coefficients quantize and generate through the same
         fixed-point kernel as the catalog (bit-exact vs the golden scalar
         model), and the quantized floor matches the design's promise at the
         width the 6 dB/bit rule predicts."""
         import jax.numpy as jnp
 
-        from blackman_harris_win_tpu.core.config import WindowSpec
-        from blackman_harris_win_tpu.kernels.window import window_samples
-        from blackman_harris_win_tpu.model import golden
-        from blackman_harris_win_tpu.utils.spectral import (
+        from blackman_harris_win.core.config import WindowSpec
+        from blackman_harris_win.kernels.window import window_samples
+        from blackman_harris_win.model import golden
+        from blackman_harris_win.utils.spectral import (
             required_width_for_sidelobe,
             window_sidelobe_db,
         )
@@ -148,9 +148,9 @@ class TestQuantizedHandoff:
         quantization stopped being the binding limit at shift 2 already."""
         import jax.numpy as jnp
 
-        from blackman_harris_win_tpu.core.config import WindowSpec
-        from blackman_harris_win_tpu.kernels.window import window_samples
-        from blackman_harris_win_tpu.utils.spectral import window_sidelobe_db
+        from blackman_harris_win.core.config import WindowSpec
+        from blackman_harris_win.kernels.window import window_samples
+        from blackman_harris_win.utils.spectral import window_sidelobe_db
 
         r = design_min_sidelobe(7)
         q1 = quantized_coeffs(r, 32, shift=1)
@@ -178,12 +178,12 @@ class TestQuantizedHandoff:
         W-bit product round costs ~2 dB vs the HLS path."""
         import jax.numpy as jnp
 
-        from blackman_harris_win_tpu.core.config import WindowSpec
-        from blackman_harris_win_tpu.kernels.window import (
+        from blackman_harris_win.core.config import WindowSpec
+        from blackman_harris_win.kernels.window import (
             rtl_cordic_coeffs,
             window_samples,
         )
-        from blackman_harris_win_tpu.utils.spectral import window_sidelobe_db
+        from blackman_harris_win.utils.spectral import window_sidelobe_db
 
         r = design_min_sidelobe(7)
         qr = rtl_cordic_coeffs(quantized_coeffs(r, 32, shift=1))
@@ -210,7 +210,7 @@ class TestQuantizedShiftValidation:
     def test_explicit_shift_zero_rejected(self):
         """shift=0 must raise, not silently fall back to the catalog rule
         (the old `shift or suggest_shift()` treated 0 as falsy)."""
-        from blackman_harris_win_tpu.windows.design import (
+        from blackman_harris_win.windows.design import (
             design_min_sidelobe, quantized_coeffs,
         )
 

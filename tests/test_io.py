@@ -5,7 +5,7 @@ and the .dat writer round-trip."""
 import numpy as np
 import pytest
 
-from blackman_harris_win_tpu.utils import io as sio
+from blackman_harris_win.utils import io as sio
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -94,8 +94,8 @@ class TestPipelineIntegration:
         """End-to-end: raw i16 capture -> native ingest -> Welch analyzer."""
         import jax.numpy as jnp
 
-        from blackman_harris_win_tpu.core.config import WindowSpec
-        from blackman_harris_win_tpu.pipeline.spectral import (
+        from blackman_harris_win.core.config import WindowSpec
+        from blackman_harris_win.pipeline.spectral import (
             windowed_power_spectrum,
         )
 

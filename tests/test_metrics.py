@@ -7,8 +7,8 @@ import math
 import numpy as np
 import pytest
 
-from blackman_harris_win_tpu.windows import catalog
-from blackman_harris_win_tpu.windows.metrics import (
+from blackman_harris_win.windows import catalog
+from blackman_harris_win.windows.metrics import (
     catalog_metrics,
     cosine_sum_coherent_gain,
     cosine_sum_enbw_bins,
@@ -162,7 +162,7 @@ class TestQuantized:
 
 
 def test_interp_crossing_error():
-    from blackman_harris_win_tpu.windows.metrics import _interp_crossing
+    from blackman_harris_win.windows.metrics import _interp_crossing
 
     with pytest.raises(ValueError, match="never crosses"):
         _interp_crossing(np.arange(4.0), np.zeros(4), -1000.0)

@@ -4,8 +4,8 @@ import json
 
 import pytest
 
-from blackman_harris_win_tpu.__main__ import main
-from blackman_harris_win_tpu.windows.modes import recommend_mode
+from blackman_harris_win.__main__ import main
+from blackman_harris_win.windows.modes import recommend_mode
 
 
 class TestRecommend:
@@ -22,8 +22,8 @@ class TestRecommend:
         assert recommend_mode("bh5", target_db=-170.0).mode == "comp"
 
     def test_int_bit_exact_2_3_term_is_taylor(self):
-        # the non-obvious rule: TAYLOR is a reference contract AND ~14x
-        # faster than the CORDIC datapath
+        # the non-obvious rule: TAYLOR is a reference contract AND does a
+        # fraction of the CORDIC datapath's per-sample work
         assert recommend_mode("hamming", consumer="int",
                               exactness="bit-exact").mode == "taylor"
         assert recommend_mode("blackman", consumer="int",

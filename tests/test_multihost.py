@@ -11,8 +11,8 @@ import sys
 
 import numpy as np
 
-from blackman_harris_win_tpu.dist.mesh import make_mesh
-from blackman_harris_win_tpu.dist.multihost import (
+from blackman_harris_win.dist.mesh import make_mesh
+from blackman_harris_win.dist.multihost import (
     owned_block_cols,
     process_block_range,
 )

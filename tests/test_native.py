@@ -9,13 +9,13 @@ Chain of evidence: C++ == Python golden (spot) and C++ == JAX kernels
 import numpy as np
 import pytest
 
-from blackman_harris_win_tpu.core.config import CordicSpec, WindowSpec
-from blackman_harris_win_tpu.kernels import cordic as kc
-from blackman_harris_win_tpu.kernels import taylor as kt
-from blackman_harris_win_tpu.kernels import window as kw
-from blackman_harris_win_tpu.model import golden
-from blackman_harris_win_tpu.model import native
-from blackman_harris_win_tpu.windows import catalog
+from blackman_harris_win.core.config import CordicSpec, WindowSpec
+from blackman_harris_win.kernels import cordic as kc
+from blackman_harris_win.kernels import taylor as kt
+from blackman_harris_win.kernels import window as kw
+from blackman_harris_win.model import golden
+from blackman_harris_win.model import native
+from blackman_harris_win.windows import catalog
 
 
 @pytest.fixture(scope="module", autouse=True)

@@ -1,11 +1,7 @@
-"""Pallas kernel path: int32-lane datapaths bit-exact vs the jnp reference.
-
-``window_values`` is the exact computation the Pallas kernel body executes
-(single-limb int32 and two-limb wide datapaths); it is asserted bit-equal to
-the jnp/golden reference here on CPU.  The ``pallas_call`` plumbing is
-covered in interpreter mode for the single-limb configs (the wide kernel is
-interpreter-hostile — thousands of unrolled limb ops — and is validated
-compiled on real TPU by the bench/verify flow).
+"""int32-lane window datapaths (``kernels/pallas/``) bit-exact vs the jnp
+reference and the golden model: the limb arithmetic, the single-limb,
+two-limb and radix-4 CORDIC cosines, and ``window_values``, which serves
+every wide configuration while x64 is off.
 """
 
 import numpy as np
@@ -13,17 +9,16 @@ import pytest
 
 import jax.numpy as jnp
 
-from blackman_harris_win_tpu.core.config import WindowSpec
-from blackman_harris_win_tpu.kernels import window as kw
-from blackman_harris_win_tpu.kernels.pallas import limb
-from blackman_harris_win_tpu.kernels.pallas.window_kernel import (
+from blackman_harris_win.core.config import WindowSpec
+from blackman_harris_win.kernels import window as kw
+from blackman_harris_win.kernels.pallas import limb
+from blackman_harris_win.kernels.pallas.window_kernel import (
     _cos_i32,
     _cos_wide,
-    pallas_window_block,
     window_values,
 )
-from blackman_harris_win_tpu.model import golden
-from blackman_harris_win_tpu.windows import catalog
+from blackman_harris_win.model import golden
+from blackman_harris_win.windows import catalog
 
 
 class TestLimb:
@@ -52,7 +47,7 @@ class TestLimb:
     def test_add_sub_wrap(self):
         rng = np.random.default_rng(3)
         iw = 34
-        from blackman_harris_win_tpu.core.fixedpoint import wrap as pywrap
+        from blackman_harris_win.core.fixedpoint import wrap as pywrap
 
         va = [int(v) for v in rng.integers(-(1 << 33), 1 << 33, size=128)]
         vb = [int(v) for v in rng.integers(-(1 << 33), 1 << 33, size=128)]
@@ -98,7 +93,7 @@ class TestLimb:
         got = limb.mul_shift30(
             jnp.asarray(a, jnp.int32), jnp.asarray(c, jnp.int32), shift
         )
-        from blackman_harris_win_tpu.core.fixedpoint import wrap as pywrap
+        from blackman_harris_win.core.fixedpoint import wrap as pywrap
 
         for i in range(512):
             want = pywrap((int(a[i]) * int(c[i])) >> shift, 32)
@@ -121,7 +116,7 @@ class TestCosDatapaths:
 
     @pytest.mark.parametrize("pw,w", [(12, 32), (26, 32)])
     def test_cos_wide4_vs_golden(self, pw, w):
-        from blackman_harris_win_tpu.kernels.pallas.window_kernel import _cos_wide4
+        from blackman_harris_win.kernels.pallas.window_kernel import _cos_wide4
 
         ph = np.unique(
             np.concatenate(
@@ -135,7 +130,7 @@ class TestCosDatapaths:
             assert int(c[i]) == golden.cordic_hls(int(p), pw, w)[0], (pw, w, p)
 
     def test_cos_wide4_rejects_narrow(self):
-        from blackman_harris_win_tpu.kernels.pallas.window_kernel import _cos_wide4
+        from blackman_harris_win.kernels.pallas.window_kernel import _cos_wide4
 
         with pytest.raises(ValueError):
             _cos_wide4(jnp.arange(4, dtype=jnp.int32), 10, 31)
@@ -180,22 +175,3 @@ class TestWindowValues:
         q = catalog.get("hann").quantized(24)
         got = np.asarray(window_values(jnp.asarray([512], jnp.int32), q, spec))
         assert int(got[0]) == 2**23 - 1
-
-
-class TestPallasCall:
-    @pytest.mark.parametrize("n0", [0, 4096 - 1024])
-    def test_interpret_matches_jnp(self, n0):
-        spec = WindowSpec(12, 17, overflow="wrap")
-        q = catalog.get("bh4").quantized(17)
-        got = np.asarray(
-            pallas_window_block(q, spec, n0, 1024, rows=8, interpret=True)
-        )
-        n = n0 + np.arange(1024)
-        want = np.asarray(kw.window_samples(n, q, spec)).astype(np.int32)
-        np.testing.assert_array_equal(got, want)
-
-    def test_bad_length(self):
-        spec = WindowSpec(12, 17)
-        q = catalog.get("bh4").quantized(17)
-        with pytest.raises(ValueError):
-            pallas_window_block(q, spec, 0, 1000, rows=8, interpret=True)

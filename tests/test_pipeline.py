@@ -10,22 +10,23 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from blackman_harris_win_tpu.dist.mesh import make_mesh
-from blackman_harris_win_tpu.pipeline.channelizer import (
+from blackman_harris_win.dist.mesh import make_mesh
+from blackman_harris_win.pipeline.channelizer import (
     design_prototype,
     polyphase_channelize,
 )
-from blackman_harris_win_tpu.pipeline.demod import (
+from blackman_harris_win.pipeline.demod import (
     fm_demod_conj,
     fm_demod_phase,
     phase_wrap,
 )
-from blackman_harris_win_tpu.pipeline.fir import (
+from blackman_harris_win.pipeline.fir import (
     decimating_fir,
     design_lowpass,
     make_sharded_decimating_fir,
 )
-from blackman_harris_win_tpu.pipeline.sdr import make_sharded_sdr_chain, sdr_chain
+from blackman_harris_win.pipeline.sdr import make_sharded_sdr_chain, sdr_chain
+from blackman_harris_win.pipeline import fir
 
 
 class TestFirDesign:
@@ -93,6 +94,45 @@ class TestDecimatingFir:
                 idx = (m * decim - halo + np.arange(len(h))) % T
                 want[c, m] = np.dot(h, x[c, idx])
         np.testing.assert_allclose(got, want, rtol=2e-4, atol=1e-4)
+
+
+class TestDecimatingFirPaths:
+    """The frames-matmul and strided-conv forms agree, the frames-path cap
+    counts every leading row, and both contractions ask for HIGHEST
+    precision (float32 products must not run as TF32)."""
+
+    def _jaxpr(self, x, taps, decim):
+        import jax
+
+        return str(jax.make_jaxpr(
+            lambda v: fir.decimating_fir(v, taps, decim))(x))
+
+    def test_conv_path_above_cap_equals_frames_path(self, monkeypatch):
+        rng = np.random.default_rng(11)
+        x = jnp.asarray(rng.standard_normal((2, 3, 4096)), jnp.float32)
+        taps = rng.standard_normal(32)
+        frames = np.asarray(fir.decimating_fir(x, taps, 4), np.float64)
+        assert "conv_general_dilated" not in self._jaxpr(x, taps, 4)
+        monkeypatch.setattr(fir, "FRAMES_CAP", 1)
+        assert "conv_general_dilated" in self._jaxpr(x, taps, 4)
+        conv = np.asarray(fir.decimating_fir(x, taps, 4), np.float64)
+        assert conv.shape == frames.shape == (2, 3, (4096 - 32) // 4 + 1)
+        xs = np.asarray(x, np.float64)
+        ref = np.stack([[np.correlate(r, taps, "valid")[::4] for r in b]
+                        for b in xs])
+        tol = 8 * 32 * 2.0**-24 * np.max(np.abs(ref))
+        assert np.max(np.abs(conv - ref)) < tol
+        assert np.max(np.abs(frames - ref)) < tol
+
+    def test_cap_counts_leading_rows(self, monkeypatch):
+        x = jnp.zeros((4, 1024), jnp.float32)
+        taps = np.ones(16)
+        per_row = ((1024 - 16) // 4 + 1) * 16
+        monkeypatch.setattr(fir, "FRAMES_CAP", 2 * per_row)
+        assert "conv_general_dilated" in self._jaxpr(x, taps, 4)  # 4 rows
+        assert "conv_general_dilated" not in self._jaxpr(x[:2], taps, 4)
+        for path_x in (x, x[:2]):
+            assert "HIGHEST" in self._jaxpr(path_x, taps, 4)
 
 
 class TestChannelizer:

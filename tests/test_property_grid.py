@@ -1,18 +1,18 @@
 """Property tests across the (PHASE_WIDTH, DATA_WIDTH) generic grid.
 
-SURVEY.md §4: the reference parameterizes everything by two generics; the
-TPU build must hold bit-exactness across the grid, not just at the configs
+SURVEY.md §4: the reference parameterizes everything by two generics; this
+library must hold bit-exactness across the grid, not just at the configs
 the reference shipped.  The native C++ oracle makes wide grids affordable.
 """
 
 import numpy as np
 import pytest
 
-from blackman_harris_win_tpu.core.config import CordicSpec, WindowSpec
-from blackman_harris_win_tpu.kernels import cordic as kc
-from blackman_harris_win_tpu.kernels import window as kw
-from blackman_harris_win_tpu.model import native
-from blackman_harris_win_tpu.windows import catalog
+from blackman_harris_win.core.config import CordicSpec, WindowSpec
+from blackman_harris_win.kernels import cordic as kc
+from blackman_harris_win.kernels import window as kw
+from blackman_harris_win.model import native
+from blackman_harris_win.windows import catalog
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -88,7 +88,7 @@ class TestWindowGrid:
 class TestMultihostHelpers:
     def test_pod_mesh_virtual(self):
         import jax
-        from blackman_harris_win_tpu.dist import multihost
+        from blackman_harris_win.dist import multihost
 
         multihost.initialize()  # degenerate single-process path
         mesh = multihost.pod_mesh(channels=2)
@@ -97,7 +97,7 @@ class TestMultihostHelpers:
             multihost.pod_mesh(channels=3)  # 8 % 3 != 0
 
     def test_process_block_range(self):
-        from blackman_harris_win_tpu.dist import multihost
+        from blackman_harris_win.dist import multihost
 
         mesh = multihost.pod_mesh(channels=1)
         start, end = multihost.process_block_range(1 << 12, mesh)
@@ -107,9 +107,9 @@ class TestMultihostHelpers:
     def test_sharded_window_on_pod_mesh(self):
         import numpy as np
 
-        from blackman_harris_win_tpu.dist import multihost
-        from blackman_harris_win_tpu.dist.generate import sharded_window
-        from blackman_harris_win_tpu.kernels.window import make_window
+        from blackman_harris_win.dist import multihost
+        from blackman_harris_win.dist.generate import sharded_window
+        from blackman_harris_win.kernels.window import make_window
 
         mesh = multihost.pod_mesh(channels=1)
         spec = WindowSpec(12, 17)

@@ -18,18 +18,18 @@ import jax
 import jax.numpy as jnp
 from jax.sharding import NamedSharding, PartitionSpec as P
 
-from blackman_harris_win_tpu.core.config import WindowSpec
-from blackman_harris_win_tpu.dist.generate import sharded_window
-from blackman_harris_win_tpu.dist.mesh import make_mesh
-from blackman_harris_win_tpu.kernels.window import window_samples
-from blackman_harris_win_tpu.pipeline.spectral import (
+from blackman_harris_win.core.config import WindowSpec
+from blackman_harris_win.dist.generate import sharded_window
+from blackman_harris_win.dist.mesh import make_mesh
+from blackman_harris_win.kernels.window import window_samples
+from blackman_harris_win.pipeline.spectral import (
     frames_view,
     make_sharded_welch,
     welch_power,
     window_scale,
     windowed_power_spectrum,
 )
-from blackman_harris_win_tpu.windows import catalog
+from blackman_harris_win.windows import catalog
 
 sys.path.insert(0, str(pathlib.Path(__file__).resolve().parents[1]))
 
@@ -120,7 +120,7 @@ class TestShardedWelchEqualsSingle:
         """win_mode='float': every shard generates the native f32 window
         (kernels/floatwin.py); must equal the single-device float-window
         analyzer on the same circular framing."""
-        from blackman_harris_win_tpu.kernels.floatwin import float_window
+        from blackman_harris_win.kernels.floatwin import float_window
 
         mesh = make_mesh(blocks=blocks, channels=channels)
         spec = WindowSpec(7, 17)
@@ -172,10 +172,10 @@ class TestDryrunMultichip:
         assert bool(jnp.all(jnp.isfinite(out)))
         # the wide-datapath tile (W=32 BH-7 RTL) checksum must match the
         # golden model's sum over the same indices
-        from blackman_harris_win_tpu.core.config import WindowSpec
-        from blackman_harris_win_tpu.kernels.window import rtl_cordic_coeffs
-        from blackman_harris_win_tpu.model import golden
-        from blackman_harris_win_tpu.windows import catalog
+        from blackman_harris_win.core.config import WindowSpec
+        from blackman_harris_win.kernels.window import rtl_cordic_coeffs
+        from blackman_harris_win.model import golden
+        from blackman_harris_win.windows import catalog
 
         q32 = rtl_cordic_coeffs(catalog.get("bh7").quantized(32))
         want = sum(
@@ -196,7 +196,7 @@ class TestPackedFft:
 
     @pytest.mark.parametrize("nframes", [4, 5])  # even + odd (zero-pad)
     def test_packed_matches_rfft(self, nframes):
-        from blackman_harris_win_tpu.pipeline.spectral import welch_power
+        from blackman_harris_win.pipeline.spectral import welch_power
 
         nfft, hop = 256, 128
         t = hop * (nframes - 1) + nfft
@@ -210,7 +210,7 @@ class TestPackedFft:
     def test_packed_exact_vs_f64_host(self):
         """Both modes against the exact f64 periodogram — the packing is
         identical math, not an approximation."""
-        from blackman_harris_win_tpu.pipeline.spectral import (
+        from blackman_harris_win.pipeline.spectral import (
             frames_view, welch_power,
         )
 
@@ -228,8 +228,8 @@ class TestPackedFft:
             assert rel < 1e-5, (mode, rel)
 
     def test_all_win_modes_support_packed(self):
-        from blackman_harris_win_tpu.core.config import WindowSpec
-        from blackman_harris_win_tpu.pipeline.spectral import (
+        from blackman_harris_win.core.config import WindowSpec
+        from blackman_harris_win.pipeline.spectral import (
             windowed_power_spectrum,
         )
 
@@ -244,13 +244,13 @@ class TestPackedFft:
             assert rel < 1e-5, (wm, rel)
 
     def test_sharded_welch_packed(self):
-        from blackman_harris_win_tpu.core.config import WindowSpec
-        from blackman_harris_win_tpu.dist.mesh import make_mesh
-        from blackman_harris_win_tpu.pipeline.spectral import (
+        from blackman_harris_win.core.config import WindowSpec
+        from blackman_harris_win.dist.mesh import make_mesh
+        from blackman_harris_win.pipeline.spectral import (
             make_sharded_welch, welch_power, window_scale,
         )
-        from blackman_harris_win_tpu.kernels.window import window_samples
-        from blackman_harris_win_tpu.windows import catalog
+        from blackman_harris_win.kernels.window import window_samples
+        from blackman_harris_win.windows import catalog
         from jax.sharding import NamedSharding, PartitionSpec as P
 
         n_dev = len(jax.devices())
@@ -276,7 +276,7 @@ class TestPackedFft:
         assert rel < 1e-5, rel
 
     def test_bad_fft_mode(self):
-        from blackman_harris_win_tpu.pipeline.spectral import welch_power
+        from blackman_harris_win.pipeline.spectral import welch_power
 
         with pytest.raises(ValueError, match="fft_mode"):
             welch_power(np.zeros((1, 512), np.float32),
@@ -285,7 +285,7 @@ class TestPackedFft:
 
 class TestRfftPowerSplit:
     def test_matches_rfft_power(self):
-        from blackman_harris_win_tpu.pipeline.spectral import rfft_power_split
+        from blackman_harris_win.pipeline.spectral import rfft_power_split
 
         rng = np.random.default_rng(11)
         for n in (128, 4096):
@@ -296,19 +296,19 @@ class TestRfftPowerSplit:
             assert rel < 2e-6, (n, rel)
 
     def test_odd_length_rejected(self):
-        from blackman_harris_win_tpu.pipeline.spectral import rfft_power_split
+        from blackman_harris_win.pipeline.spectral import rfft_power_split
 
         with pytest.raises(ValueError, match="even"):
             rfft_power_split(np.zeros(127, np.float32))
 
 
 class TestMxuFft:
-    """fft_mode='mxu': mixed-radix MXU-matmul DFT stages (the round-5
-    FFT-wall bypass, 1.30x the rfft analyzer on chip — BENCH_NOTES)."""
+    """fft_mode='mxu': mixed-radix matmul DFT stages, the backend that
+    bypasses XLA's FFT."""
 
     @pytest.mark.parametrize("nfft", [256, 512, 1024, 4096])
     def test_matches_rfft(self, nfft):
-        from blackman_harris_win_tpu.pipeline.spectral import welch_power
+        from blackman_harris_win.pipeline.spectral import welch_power
 
         hop = nfft // 2
         t = hop * 6 + nfft - hop
@@ -320,7 +320,7 @@ class TestMxuFft:
         assert rel < 2e-6, (nfft, rel)
 
     def test_radix_plan(self):
-        from blackman_harris_win_tpu.pipeline.spectral import _mxu_radices
+        from blackman_harris_win.pipeline.spectral import _mxu_radices
 
         assert _mxu_radices(1 << 20) == (128, 128, 64)
         assert _mxu_radices(4096) == (64, 64)
@@ -333,7 +333,7 @@ class TestMxuFft:
             assert prod == n, (n, r)
 
     def test_guards(self):
-        from blackman_harris_win_tpu.pipeline.spectral import _mxu_radices
+        from blackman_harris_win.pipeline.spectral import _mxu_radices
 
         with pytest.raises(ValueError, match="mxu"):
             _mxu_radices(128)
@@ -341,8 +341,8 @@ class TestMxuFft:
             _mxu_radices(3000)
 
     def test_through_windowed_power_spectrum(self):
-        from blackman_harris_win_tpu.core.config import WindowSpec
-        from blackman_harris_win_tpu.pipeline.spectral import (
+        from blackman_harris_win.core.config import WindowSpec
+        from blackman_harris_win.pipeline.spectral import (
             windowed_power_spectrum,
         )
 
@@ -359,7 +359,7 @@ class TestMxuFft:
 
 class TestMxuCfft:
     def test_complex_fft_natural_order(self):
-        from blackman_harris_win_tpu.pipeline.spectral import mxu_cfft
+        from blackman_harris_win.pipeline.spectral import mxu_cfft
 
         rng = np.random.default_rng(9)
         for m in (256, 1024):
@@ -372,7 +372,7 @@ class TestMxuCfft:
             assert rel < 2e-6, (m, rel)
 
     def test_rfft_power_split_mxu(self):
-        from blackman_harris_win_tpu.pipeline.spectral import rfft_power_split
+        from blackman_harris_win.pipeline.spectral import rfft_power_split
 
         rng = np.random.default_rng(10)
         x = rng.normal(size=(2, 2048)).astype(np.float32)
@@ -382,40 +382,32 @@ class TestMxuCfft:
         assert rel < 2e-6, rel
 
 
-class TestPallasFusedWelch:
-    """Round-5 Pallas-fused Welch front half (framing + window + pack +
-    DFT stage 1 in one kernel; 2.1x the rfft analyzer on chip)."""
+class TestWelchBackendsVsF64:
+    """Every FFT backend against a float64 NumPy Welch: 1-D and 2-D input,
+    even and odd frame counts (packed and mxu pair frames and pad an odd
+    one)."""
 
-    def _check(self, t_frames, nfft=1 << 19):
-        from blackman_harris_win_tpu.pipeline.spectral import (
-            _mxu_fused_mean_power, welch_power,
-        )
+    @pytest.mark.parametrize("mode", ["rfft", "packed", "mxu"])
+    @pytest.mark.parametrize("shape", [(), (3,)])
+    @pytest.mark.parametrize("nframes", [6, 7])
+    def test_matches_numpy_f64(self, mode, shape, nframes):
+        from blackman_harris_win.pipeline.spectral import welch_power
 
-        hop = nfft // 2
-        t = hop * t_frames + hop  # nf = t_frames
-        rng = np.random.default_rng(13)
-        x = rng.normal(size=(t,)).astype(np.float32)
-        win = np.hanning(nfft).astype(np.float32)
-        got = np.asarray(_mxu_fused_mean_power(
-            jnp.asarray(x), jnp.asarray(win), nfft, interpret=True),
-            np.float64)
-        want = np.asarray(welch_power(x, win, nfft, hop, "rfft"),
-                          np.float64)
-        rel = np.max(np.abs(got - want) / (np.abs(want).max() + 1e-300))
-        assert rel < 1e-5, (t_frames, rel)
+        nfft, hop = 256, 128
+        t = (nframes - 1) * hop + nfft
+        rng = np.random.default_rng(nframes + len(shape))
+        x = rng.standard_normal(shape + (t,)).astype(np.float32)
+        win = (0.5 - 0.5 * np.cos(2 * np.pi * np.arange(nfft) / nfft))
+        got = np.asarray(welch_power(jnp.asarray(x), jnp.asarray(
+            win, jnp.float32), nfft, hop, mode), np.float64)
+        frames = np.stack([x[..., m * hop: m * hop + nfft]
+                           for m in range(nframes)], axis=-2)
+        ref = np.mean(np.abs(np.fft.rfft(
+            frames.astype(np.float64) * win.astype(np.float32),
+            axis=-1)) ** 2, axis=-2)
+        assert got.shape == shape + (nfft // 2 + 1,)
+        # f32 arithmetic: ~nfft ops per bin, eps 2^-24, sqrt(nfft) growth,
+        # x32 margin (the derivation of chip_smoke.welch_budget)
+        budget = 32 * 2.0**-24 * np.sqrt(nfft)
+        assert np.max(np.abs(got - ref) / ref) < budget
 
-    def test_odd_frame_count(self):
-        self._check(5)  # pad frame masked in-kernel
-
-    def test_even_frame_count(self):
-        self._check(4)
-
-    def test_eligibility_gate(self):
-        from blackman_harris_win_tpu.pipeline.spectral import _fused_ok
-
-        from blackman_harris_win_tpu.pipeline.spectral import _mxu_radices
-
-        assert _fused_ok(1 << 20)  # (128, 128, 64)
-        assert _mxu_radices(1 << 19)[0] == 128 and _fused_ok(1 << 19)
-        assert not _fused_ok(1 << 18)  # (64, 64, 64): r0 != 128
-        assert not _fused_ok(128)  # below the mxu floor

@@ -8,10 +8,10 @@ round((2^(W-shift)-1) * w_float[n]).
 import numpy as np
 import pytest
 
-from blackman_harris_win_tpu.core.config import WindowSpec
-from blackman_harris_win_tpu.kernels import window as kw
-from blackman_harris_win_tpu.model import golden
-from blackman_harris_win_tpu.windows import catalog
+from blackman_harris_win.core.config import WindowSpec
+from blackman_harris_win.kernels import window as kw
+from blackman_harris_win.model import golden
+from blackman_harris_win.windows import catalog
 
 HLS_WINDOWS = ["hamming", "hann", "bh3_hls", "bh4", "bh5", "bh7"]
 ALL_WINDOWS = sorted(catalog.CATALOG)
@@ -198,7 +198,7 @@ class TestRtlCordicGainQuirk:
     def test_raw_ports_pedestal_pinned(self):
         import jax.numpy as jnp
 
-        from blackman_harris_win_tpu.utils.spectral import window_sidelobe_db
+        from blackman_harris_win.utils.spectral import window_sidelobe_db
 
         q = catalog.get("bh7").quantized(24)
         spec = WindowSpec(12, 24, rounding="rtl", overflow="wrap")
@@ -216,7 +216,7 @@ class TestRtlCordicGainQuirk:
     def test_corrected_ports_restore_floor(self, name, w_, pw, bound):
         import jax.numpy as jnp
 
-        from blackman_harris_win_tpu.utils.spectral import window_sidelobe_db
+        from blackman_harris_win.utils.spectral import window_sidelobe_db
 
         qr = kw.rtl_cordic_coeffs(catalog.get(name).quantized(w_))
         spec = WindowSpec(pw, w_, rounding="rtl", overflow="wrap")
@@ -250,7 +250,7 @@ class TestW32SaturateTracking:
     def test_overflowing_set_clamps_exactly(self):
         import jax.numpy as jnp
 
-        from blackman_harris_win_tpu.kernels.pallas.window_kernel import (
+        from blackman_harris_win.kernels.pallas.window_kernel import (
             window_values,
         )
 
@@ -278,7 +278,7 @@ class TestW32SaturateTracking:
         the catalog bh7 (shift-2 headroom) across quadrant seams."""
         import jax.numpy as jnp
 
-        from blackman_harris_win_tpu.kernels.pallas.window_kernel import (
+        from blackman_harris_win.kernels.pallas.window_kernel import (
             window_values,
         )
 
@@ -297,16 +297,16 @@ class TestBeyond64M:
     """The reference tops out at 64M points (README.md:2); the closed-form
     phase math carries further — pw=28 (256M) pinned bit-exact at the
     quadrant seam through the wide int32-lane datapath, plus the f32/comp
-    fast modes at pair accuracy (chip throughput in BENCH_NOTES round 4)."""
+    fast modes at pair accuracy."""
 
     def test_pw28_exact_path_bit_exact(self):
         import jax
         import jax.numpy as jnp
 
-        from blackman_harris_win_tpu.kernels.pallas.window_kernel import (
+        from blackman_harris_win.kernels.pallas.window_kernel import (
             window_values,
         )
-        from blackman_harris_win_tpu.model import native
+        from blackman_harris_win.model import native
 
         pw = 28
         q = catalog.get("bh7").quantized(32)
@@ -321,8 +321,8 @@ class TestBeyond64M:
         import jax
         import jax.numpy as jnp
 
-        from blackman_harris_win_tpu.kernels.compwin import comp_window_block
-        from blackman_harris_win_tpu.kernels.floatwin import (
+        from blackman_harris_win.kernels.compwin import comp_window_block
+        from blackman_harris_win.kernels.floatwin import (
             float_window_block,
         )
 
@@ -357,7 +357,7 @@ class TestPw31Ceiling:
         import jax
         import jax.numpy as jnp
 
-        from blackman_harris_win_tpu.kernels.pallas.window_kernel import (
+        from blackman_harris_win.kernels.pallas.window_kernel import (
             window_values,
         )
 
@@ -375,7 +375,7 @@ class TestPw31Ceiling:
         import jax
         import jax.numpy as jnp
 
-        from blackman_harris_win_tpu.kernels.pallas.window_kernel import (
+        from blackman_harris_win.kernels.pallas.window_kernel import (
             window_values_rtl,
         )
 
@@ -390,7 +390,7 @@ class TestPw31Ceiling:
             assert int(got[i]) == want, ni
 
     def test_pw31_cordic_engines_bit_exact(self):
-        from blackman_harris_win_tpu.kernels.pallas.cordic_wide import (
+        from blackman_harris_win.kernels.pallas.cordic_wide import (
             cordic_dds48_i32,
             cordic_hls_i32,
         )
@@ -409,10 +409,10 @@ class TestPw31Ceiling:
     def test_pw32_fails_loudly(self):
         import jax.numpy as jnp
 
-        from blackman_harris_win_tpu.kernels.pallas.cordic_wide import (
+        from blackman_harris_win.kernels.pallas.cordic_wide import (
             cordic_hls_i32,
         )
-        from blackman_harris_win_tpu.kernels.pallas.window_kernel import (
+        from blackman_harris_win.kernels.pallas.window_kernel import (
             window_values,
         )
 
@@ -429,7 +429,7 @@ class TestPw31MoreEngines:
     paths + the taylor ROM path)."""
 
     def test_dds_and_scaled_and_cmodel(self):
-        from blackman_harris_win_tpu.kernels.pallas.cordic_wide import (
+        from blackman_harris_win.kernels.pallas.cordic_wide import (
             cordic_cmodel_i32,
             cordic_dds_i32,
             cordic_scaled_i32,
@@ -452,7 +452,7 @@ class TestPw31MoreEngines:
             assert int(c[i]) == gc and int(s[i]) == gs, ni
 
     def test_taylor_pw31(self):
-        from blackman_harris_win_tpu.kernels import taylor as kt
+        from blackman_harris_win.kernels import taylor as kt
 
         pw, w, ls = 31, 16, 10
         seam = (1 << (pw - 2)) - 4 + np.arange(8, dtype=np.int64)
